@@ -34,15 +34,15 @@ def main():
                          "(the reference Viewer thread, Viewer.py:40)")
     args = ap.parse_args()
 
-    from pyorbslam_tpu.config import SlamConfig
-    from pyorbslam_tpu.io.kitti import iter_stereo, load_image_paths
-    from pyorbslam_tpu.slam.system import System
+    from pyorbslam_jax.config import SlamConfig
+    from pyorbslam_jax.io.kitti import iter_stereo, load_image_paths
+    from pyorbslam_jax.slam.system import System
 
     cfg = SlamConfig.from_yaml(args.pathToSettings)
 
     vocabulary = None
     if args.pathToVocabulary != "auto" and os.path.exists(args.pathToVocabulary):
-        from pyorbslam_tpu.place.vocabulary import Vocabulary
+        from pyorbslam_jax.place.vocabulary import Vocabulary
 
         print(f"loading vocabulary {args.pathToVocabulary} ...")
         vocabulary = Vocabulary.load_text(args.pathToVocabulary)
@@ -57,7 +57,7 @@ def main():
 
     viewer = None
     if args.viewer:
-        from pyorbslam_tpu.viz.live_viewer import LiveViewer
+        from pyorbslam_jax.viz.live_viewer import LiveViewer
 
         viewer = LiveViewer(system, port=args.viewer).start()
         print(f"live viewer: http://localhost:{viewer.port}/")

@@ -6,10 +6,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pyorbslam_tpu.config import OrbConfig
-from pyorbslam_tpu.io.synthetic import make_texture
-from pyorbslam_tpu.ops.atlas import atlas_layout, extract_features_atlas
-from pyorbslam_tpu.ops.extractor import extract_features
+from pyorbslam_jax.config import OrbConfig
+from pyorbslam_jax.io.synthetic import make_texture
+from pyorbslam_jax.ops.atlas import atlas_layout, extract_features_atlas
+from pyorbslam_jax.ops.extractor import extract_features
 
 
 @pytest.fixture(scope="module")
@@ -48,8 +48,8 @@ class TestAtlasLayout:
             assert b0 - a1 >= orb.cell_size
 
     def test_canvas_assembly_roundtrip(self, pair, orb):
-        from pyorbslam_tpu.ops import pyramid as pyr_ops
-        from pyorbslam_tpu.ops.atlas import assemble_canvas
+        from pyorbslam_jax.ops import pyramid as pyr_ops
+        from pyorbslam_jax.ops.atlas import assemble_canvas
 
         l, r = pair
         lay = atlas_layout(l.shape[0], l.shape[1], orb.scale_factor,

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-from pyorbslam_tpu.io.synthetic import generate_sequence
-from pyorbslam_tpu.slam.system import System
-from pyorbslam_tpu.utils.checkpoint import load_map, save_map
+from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+from pyorbslam_jax.io.synthetic import generate_sequence
+from pyorbslam_jax.slam.system import System
+from pyorbslam_jax.utils.checkpoint import load_map, save_map
 
 
 class TestCheckpoint:

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyorbslam_tpu.optim import ba
-from pyorbslam_tpu.parallel import dist_ba
+from pyorbslam_jax.optim import ba
+from pyorbslam_jax.parallel import dist_ba
 from tests.test_ba import make_ba_problem
 
 
@@ -110,7 +110,7 @@ class TestDistributedBACG:
             obs_active=jnp.asarray(active),
         )
 
-        from pyorbslam_tpu.optim import ba_cg
+        from pyorbslam_jax.optim import ba_cg
 
         sharded = dist_ba.shard_problem(prob, mesh)
         cam_out, pnt_out, _ = dist_ba.distributed_bundle_adjust_cg(
@@ -143,7 +143,7 @@ class TestDistributedBACG:
     def test_matches_single_device_cg(self, mesh):
         """psum of per-shard segment sums == the global segment sum: the
         sharded CG engine must numerically track the single-device one."""
-        from pyorbslam_tpu.optim import ba_cg
+        from pyorbslam_jax.optim import ba_cg
 
         rng = np.random.default_rng(3)
         prob, T_true, pts = shardable_problem(rng)
@@ -162,9 +162,9 @@ class TestDistributedPoseGraph:
     def test_matches_single_device_cg(self, mesh):
         """Sharded pose graph == single-device CG solver (the psum of
         per-shard segment sums is the global segment sum)."""
-        from pyorbslam_tpu.geometry import se3
-        from pyorbslam_tpu.optim.pose_graph import optimize_pose_graph_cg
-        from pyorbslam_tpu.parallel import dist_pose_graph
+        from pyorbslam_jax.geometry import se3
+        from pyorbslam_jax.optim.pose_graph import optimize_pose_graph_cg
+        from pyorbslam_jax.parallel import dist_pose_graph
 
         rng = np.random.default_rng(5)
         C = 24

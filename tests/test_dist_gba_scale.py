@@ -14,11 +14,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-from pyorbslam_tpu.io.synthetic import generate_sequence
-from pyorbslam_tpu.optim import ba, ba_cg
-from pyorbslam_tpu.parallel import dist_ba
-from pyorbslam_tpu.slam.system import System
+from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+from pyorbslam_jax.io.synthetic import generate_sequence
+from pyorbslam_jax.optim import ba, ba_cg
+from pyorbslam_jax.parallel import dist_ba
+from pyorbslam_jax.slam.system import System
 
 
 @pytest.fixture(scope="module")

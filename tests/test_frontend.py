@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyorbslam_tpu.config import OrbConfig
-from pyorbslam_tpu.io.synthetic import make_texture
-from pyorbslam_tpu.ops import fast as fast_ops
-from pyorbslam_tpu.ops import hamming as ham
-from pyorbslam_tpu.ops import orb_descriptor as desc_ops
-from pyorbslam_tpu.ops import pyramid as pyr_ops
-from pyorbslam_tpu.ops.extractor import extract_features_jit
+from pyorbslam_jax.config import OrbConfig
+from pyorbslam_jax.io.synthetic import make_texture
+from pyorbslam_jax.ops import fast as fast_ops
+from pyorbslam_jax.ops import hamming as ham
+from pyorbslam_jax.ops import orb_descriptor as desc_ops
+from pyorbslam_jax.ops import pyramid as pyr_ops
+from pyorbslam_jax.ops.extractor import extract_features_jit
 
 
 @pytest.fixture(scope="module")
@@ -214,7 +214,7 @@ class TestRealImageGolden:
     """Golden frontend parity on a REAL KITTI frame against the
     reference's OWN C++ extractor (pyORBExtractor/ORBextractor.cpp via
     the refbench C shim) — the check pyORBExtractor/test.py:28-55 runs,
-    not just cv2 on synthetic texture (VERDICT r4 item 5)."""
+    not just cv2 on synthetic texture."""
 
     REF_IMG = "/root/reference/pyORBExtractor/kitti06-436.png"
 

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyorbslam_tpu.geometry import se3, sim3
+from pyorbslam_jax.geometry import se3, sim3
 
 jax.config.update("jax_enable_x64", False)
 
@@ -114,7 +114,7 @@ class TestSim3:
 
 class TestMetrics:
     def test_ate_zero_for_identical(self):
-        from pyorbslam_tpu.utils.metrics import ate_rmse
+        from pyorbslam_jax.utils.metrics import ate_rmse
 
         rng = np.random.default_rng(9)
         poses = np.tile(np.eye(4), (20, 1, 1))
@@ -122,7 +122,7 @@ class TestMetrics:
         assert ate_rmse(poses, poses) < 1e-9
 
     def test_ate_invariant_to_rigid_motion(self):
-        from pyorbslam_tpu.utils.metrics import ate_rmse
+        from pyorbslam_jax.utils.metrics import ate_rmse
         from scipy.spatial.transform import Rotation
 
         rng = np.random.default_rng(10)
@@ -137,7 +137,7 @@ class TestMetrics:
 
 class TestConfig:
     def test_features_per_level_sums_to_total(self):
-        from pyorbslam_tpu.config import OrbConfig
+        from pyorbslam_jax.config import OrbConfig
 
         orb = OrbConfig(n_features=2000, scale_factor=1.2, n_levels=8)
         per = orb.features_per_level
@@ -146,7 +146,7 @@ class TestConfig:
         assert per[0] == max(per)
 
     def test_yaml_parity(self, tmp_path):
-        from pyorbslam_tpu.config import SlamConfig
+        from pyorbslam_jax.config import SlamConfig
 
         yaml_text = """%YAML:1.0
 Camera.fx: 718.856
@@ -177,7 +177,7 @@ ORBextractor.minThFAST: 7
 
 class TestKittiIO:
     def test_trajectory_roundtrip(self, tmp_path):
-        from pyorbslam_tpu.io.kitti import load_trajectory_kitti, save_trajectory_kitti
+        from pyorbslam_jax.io.kitti import load_trajectory_kitti, save_trajectory_kitti
         from scipy.spatial.transform import Rotation
 
         rng = np.random.default_rng(11)

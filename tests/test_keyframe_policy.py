@@ -6,10 +6,10 @@ import itertools
 
 import numpy as np
 
-from pyorbslam_tpu.config import OrbConfig, SlamConfig
-from pyorbslam_tpu.slam.local_mapping import LocalMapper
-from pyorbslam_tpu.slam.slam_map import SlamMap
-from pyorbslam_tpu.slam.system import need_new_keyframe
+from pyorbslam_jax.config import OrbConfig, SlamConfig
+from pyorbslam_jax.slam.local_mapping import LocalMapper
+from pyorbslam_jax.slam.slam_map import SlamMap
+from pyorbslam_jax.slam.system import need_new_keyframe
 
 
 def reference_decision(n_inliers, n_ref_matches, n_kfs, frame_id,

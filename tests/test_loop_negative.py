@@ -12,10 +12,10 @@ asserts the geometric gates hold the line.
 import numpy as np
 import pytest
 
-from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-from pyorbslam_tpu.io import synthetic as syn
-from pyorbslam_tpu.slam.system import System
-from pyorbslam_tpu.utils.metrics import ate_rmse
+from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+from pyorbslam_jax.io import synthetic as syn
+from pyorbslam_jax.slam.system import System
+from pyorbslam_jax.utils.metrics import ate_rmse
 
 
 @pytest.fixture(scope="module")
@@ -86,13 +86,13 @@ class TestSim3FailCooldown:
     _cooldown_filter): a candidate region that just failed geometric
     verification is skipped for SIM3_FAIL_COOLDOWN keyframes, then
     eligible again.  At scale the repeated doomed RANSAC ladder was the
-    dominant loop-stage cost (EVAL_SCALE_R5_115_LOOP.log: loop.sim3
-    107 s of a 396 s run)."""
+    dominant loop-stage cost (over a quarter of a 700-frame run's wall
+    time went to loop.sim3)."""
 
     def _closer(self):
         import types
 
-        from pyorbslam_tpu.slam.loop_closing import LoopCloser
+        from pyorbslam_jax.slam.loop_closing import LoopCloser
 
         lc = LoopCloser.__new__(LoopCloser)
         lc.__class__ = LoopCloser

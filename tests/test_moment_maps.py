@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from pyorbslam_tpu.io.synthetic import make_texture
-from pyorbslam_tpu.ops import orb_descriptor as dsc
-from pyorbslam_tpu.ops import pyramid as pyr
+from pyorbslam_jax.io.synthetic import make_texture
+from pyorbslam_jax.ops import orb_descriptor as dsc
+from pyorbslam_jax.ops import pyramid as pyr
 
 
 class TestMomentMaps:
@@ -28,7 +28,7 @@ class TestMomentMaps:
         """ic_angles_at (row-cumsum form) vs the reference patch-gather
         form at atlas-canvas widths, where cumsum(col*I) magnitude
         stresses float32 resolution — keypoints at large x are the
-        worst case (ADVICE r4: orb_descriptor.py ic_angles_at)."""
+        worst case (orb_descriptor.py ic_angles_at)."""
         rng = np.random.default_rng(3)
         img = jnp.asarray(rng.integers(0, 256, (200, 2500)), jnp.float32)
         padded = pyr.reflect_pad(img, dsc.BORDER)

@@ -6,7 +6,7 @@ from collections import defaultdict
 import numpy as np
 import pytest
 
-from pyorbslam_tpu.native import mapcore_ffi
+from pyorbslam_jax.native import mapcore_ffi
 
 
 def make_core(n_kf=12, n_feat=64, n_lm=256):

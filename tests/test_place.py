@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyorbslam_tpu.place import vocabulary as vocab_mod
-from pyorbslam_tpu.place.keyframe_db import KeyFrameDatabase
-from pyorbslam_tpu.place.vocabulary import Vocabulary
+from pyorbslam_jax.place import vocabulary as vocab_mod
+from pyorbslam_jax.place.keyframe_db import KeyFrameDatabase
+from pyorbslam_jax.place.vocabulary import Vocabulary
 
 
 def random_descriptors(rng, n):
@@ -122,7 +122,7 @@ class TestKeyFrameDatabase:
 
 class TestEPnP:
     def _problem(self, rng, n=60, outlier_frac=0.0):
-        from pyorbslam_tpu.geometry import se3
+        from pyorbslam_jax.geometry import se3
 
         fx = fy = 400.0
         cx, cy = 320.0, 120.0
@@ -149,7 +149,7 @@ class TestEPnP:
         return Xw, uv, cam4, T, n
 
     def test_ransac_recovers_pose(self):
-        from pyorbslam_tpu.optim.epnp import epnp_ransac
+        from pyorbslam_jax.optim.epnp import epnp_ransac
 
         rng = np.random.default_rng(0)
         Xw, uv, cam4, T, n = self._problem(rng, outlier_frac=0.25)
@@ -167,7 +167,7 @@ class TestEPnP:
         assert int(res.n_inliers) > 0.6 * n
 
     def test_degenerate_fails_gracefully(self):
-        from pyorbslam_tpu.optim.epnp import epnp_ransac
+        from pyorbslam_jax.optim.epnp import epnp_ransac
 
         rng = np.random.default_rng(1)
         n = 30

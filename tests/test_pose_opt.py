@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pyorbslam_tpu.geometry import se3
-from pyorbslam_tpu.optim import pose_opt
+from pyorbslam_jax.geometry import se3
+from pyorbslam_jax.optim import pose_opt
 
 
 def make_problem(rng, n=300, noise_px=0.3, outlier_frac=0.0, pose_err=0.2):

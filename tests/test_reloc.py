@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-from pyorbslam_tpu.io.synthetic import generate_sequence
-from pyorbslam_tpu.slam.system import System
+from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+from pyorbslam_jax.io.synthetic import generate_sequence
+from pyorbslam_jax.slam.system import System
 
 
 class TestRelocalization:

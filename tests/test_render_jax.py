@@ -5,8 +5,8 @@ pixel agrees to the u8 quantization step."""
 
 import numpy as np
 
-from pyorbslam_tpu.io import synthetic
-from pyorbslam_tpu.io.render_jax import JaxRenderer
+from pyorbslam_jax.io import synthetic
+from pyorbslam_jax.io.render_jax import JaxRenderer
 
 
 def test_render_jax_matches_numpy_interior():

@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyorbslam_tpu.geometry import se3, sim3 as sim3_mod
-from pyorbslam_tpu.geometry.sim3 import Sim3
-from pyorbslam_tpu.optim.horn import horn_align, sim3_ransac
-from pyorbslam_tpu.optim.pose_graph import (
+from pyorbslam_jax.geometry import se3, sim3 as sim3_mod
+from pyorbslam_jax.geometry.sim3 import Sim3
+from pyorbslam_jax.optim.horn import horn_align, sim3_ransac
+from pyorbslam_jax.optim.pose_graph import (
     optimize_pose_graph,
     optimize_pose_graph_cg,
 )
-from pyorbslam_tpu.optim.sim3_opt import optimize_sim3
+from pyorbslam_jax.optim.sim3_opt import optimize_sim3
 
 
 def rand_rot(rng, scale=1.0):

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-from pyorbslam_tpu.io.synthetic import generate_sequence, render_depth
-from pyorbslam_tpu.slam.frame import build_stereo_frame_jit, unproject
+from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+from pyorbslam_jax.io.synthetic import generate_sequence, render_depth
+from pyorbslam_jax.slam.frame import build_stereo_frame_jit, unproject
 
 
 @pytest.fixture(scope="module")

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-from pyorbslam_tpu.io.synthetic import generate_sequence
-from pyorbslam_tpu.slam.system import System
-from pyorbslam_tpu.utils.metrics import ate_rmse
+from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+from pyorbslam_jax.io.synthetic import generate_sequence
+from pyorbslam_jax.slam.system import System
+from pyorbslam_jax.utils.metrics import ate_rmse
 
 
 def make_cfg(seq):

@@ -4,9 +4,9 @@
 import numpy as np
 import pytest
 
-from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-from pyorbslam_tpu.slam.tracking import Tracker
-from pyorbslam_tpu.utils.metrics import ate_rmse, rpe
+from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+from pyorbslam_jax.slam.tracking import Tracker
+from pyorbslam_jax.utils.metrics import ate_rmse, rpe
 
 
 @pytest.fixture(scope="module")

@@ -8,10 +8,10 @@ import urllib.request
 
 import numpy as np
 
-from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-from pyorbslam_tpu.io.synthetic import generate_sequence
-from pyorbslam_tpu.slam.system import System
-from pyorbslam_tpu.viz.live_viewer import LiveViewer, _gray_bmp_b64
+from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+from pyorbslam_jax.io.synthetic import generate_sequence
+from pyorbslam_jax.slam.system import System
+from pyorbslam_jax.viz.live_viewer import LiveViewer, _gray_bmp_b64
 
 
 def test_viewer_serves_state(data_cache_dir):

@@ -5,7 +5,7 @@ held-out scenes."""
 import numpy as np
 import pytest
 
-from pyorbslam_tpu.place import vocabulary as vocab_mod
+from pyorbslam_jax.place import vocabulary as vocab_mod
 
 
 @pytest.fixture(scope="module")
@@ -27,9 +27,9 @@ class TestVocabularyAsset:
         assert np.std(w[w > 0]) > 0.1
 
     def test_system_loads_asset_by_default(self, data_cache_dir):
-        from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-        from pyorbslam_tpu.io.synthetic import generate_sequence
-        from pyorbslam_tpu.slam.system import System
+        from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+        from pyorbslam_jax.io.synthetic import generate_sequence
+        from pyorbslam_jax.slam.system import System
 
         seq = generate_sequence(
             n_frames=3, width=512, height=160, trajectory="straight",
@@ -51,9 +51,9 @@ class TestVocabularyAsset:
         margin — the precision property loop detection rests on."""
         import jax.numpy as jnp
 
-        from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-        from pyorbslam_tpu.io.synthetic import generate_sequence
-        from pyorbslam_tpu.slam.frame import build_stereo_frame_jit
+        from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+        from pyorbslam_jax.io.synthetic import generate_sequence
+        from pyorbslam_jax.slam.frame import build_stereo_frame_jit
 
         seq = generate_sequence(
             n_frames=24, width=512, height=160, trajectory="straight",

@@ -51,10 +51,10 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-    from pyorbslam_tpu.io.synthetic import SyntheticStream
-    from pyorbslam_tpu.slam.system import System
-    from pyorbslam_tpu.utils.metrics import ate_rmse
+    from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+    from pyorbslam_jax.io.synthetic import SyntheticStream
+    from pyorbslam_jax.slam.system import System
+    from pyorbslam_jax.utils.metrics import ate_rmse
 
     stream = SyntheticStream(
         n_frames=args.frames, width=args.width, height=args.height,

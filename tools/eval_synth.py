@@ -40,10 +40,10 @@ def main():
                     help="first two sequences only")
     args = ap.parse_args()
 
-    from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-    from pyorbslam_tpu.io.synthetic import generate_sequence
-    from pyorbslam_tpu.slam.system import System
-    from pyorbslam_tpu.utils.metrics import ate_rmse, rpe
+    from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+    from pyorbslam_jax.io.synthetic import generate_sequence
+    from pyorbslam_jax.slam.system import System
+    from pyorbslam_jax.utils.metrics import ate_rmse, rpe
 
     cache = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "tests", "_data")

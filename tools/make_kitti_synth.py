@@ -29,7 +29,7 @@ def main():
 
     import cv2
 
-    from pyorbslam_tpu.io.synthetic import generate_sequence
+    from pyorbslam_jax.io.synthetic import generate_sequence
 
     seq = generate_sequence(
         n_frames=args.frames, width=args.width, height=args.height,

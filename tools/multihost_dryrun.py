@@ -1,14 +1,15 @@
 """Multi-HOST dryrun: the distributed BA + Sim3 pose-graph engines across
-real process boundaries (multi-process CPU JAX), validating the pod
-deployment shape without TPUs (SURVEY §4, BASELINE config 5).
+real process boundaries (multi-process CPU JAX), validating the
+multi-host deployment shape without accelerators (SURVEY §4, BASELINE
+config 5).
 
 The parent spawns N worker processes, each modeling one host with K
 virtual chips (``--xla_force_host_platform_device_count``).  Workers form
-one global mesh via ``jax.distributed`` (pyorbslam_tpu.parallel.multihost)
+one global mesh via ``jax.distributed`` (pyorbslam_jax.parallel.multihost)
 and run the SAME engines the single-process System uses —
 ``parallel/dist_ba.distributed_bundle_adjust_cg`` and
 ``parallel/dist_pose_graph.distributed_pose_graph`` — with their
-collectives now crossing process boundaries (the DCN stand-in).  Worker 0
+collectives now crossing process boundaries (the network stand-in).  Worker 0
 compares against single-device solves and the parent records
 MULTIHOST_DRYRUN.json at the repo root.
 
@@ -27,7 +28,7 @@ sys.path.insert(0, REPO)
 
 
 def worker(args):
-    from pyorbslam_tpu.parallel import multihost
+    from pyorbslam_jax.parallel import multihost
 
     multihost.initialize(f"127.0.0.1:{args.port}", args.procs, args.worker)
 
@@ -36,9 +37,9 @@ def worker(args):
     import numpy as np
     from jax.experimental import multihost_utils
 
-    from pyorbslam_tpu.optim import ba, ba_cg
-    from pyorbslam_tpu.optim.pose_graph import optimize_pose_graph_cg
-    from pyorbslam_tpu.parallel import dist_ba, dist_pose_graph
+    from pyorbslam_jax.optim import ba, ba_cg
+    from pyorbslam_jax.optim.pose_graph import optimize_pose_graph_cg
+    from pyorbslam_jax.parallel import dist_ba, dist_pose_graph
     from tests.test_ba import make_ba_problem
 
     mesh = multihost.global_mesh()
@@ -68,7 +69,7 @@ def worker(args):
     ba_s = time.time() - t0
 
     # ---------------- distributed pose graph across hosts ----------------
-    from pyorbslam_tpu.geometry import se3
+    from pyorbslam_jax.geometry import se3
 
     C = 24
     gt, est = [], []
@@ -181,7 +182,7 @@ def main():
         worker(args)
         return
 
-    from pyorbslam_tpu.parallel import multihost
+    from pyorbslam_jax.parallel import multihost
 
     env = multihost.dryrun_env(args.local_devices)
     if os.path.exists(args.result):

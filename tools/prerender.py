@@ -4,8 +4,8 @@
         [--backend jax]
 
 Default backend is the numpy ray-caster on CPU.  --backend jax renders
-through io/render_jax.py on the default JAX device (the TPU when
-attached: ~0.1 s/frame vs ~3 s/frame numpy) into a separate cache key.
+through io/render_jax.py on the default JAX device (the GPU when one
+is present) into a separate cache key.
 Renders frames start, start+step, ... so processes can split a world.
 """
 
@@ -17,7 +17,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 if "--backend" not in " ".join(sys.argv) or "jax" not in sys.argv:
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")   # keep off the TPU
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")   # keep off the GPU
 
 
 def main():
@@ -33,7 +33,7 @@ def main():
     ap.add_argument("--backend", default="numpy", choices=["numpy", "jax"])
     args = ap.parse_args()
 
-    from pyorbslam_tpu.io.synthetic import SyntheticStream
+    from pyorbslam_jax.io.synthetic import SyntheticStream
 
     stream = SyntheticStream(
         n_frames=args.frames, width=args.width, height=args.height,

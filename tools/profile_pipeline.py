@@ -27,12 +27,12 @@ def main():
 
     import jax
 
-    from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-    from pyorbslam_tpu.io.synthetic import generate_sequence
-    from pyorbslam_tpu.slam import local_mapping, system as system_mod
-    from pyorbslam_tpu.slam.system import System
-    from pyorbslam_tpu.slam import slam_map as slam_map_mod
-    from pyorbslam_tpu.slam.loop_closing import LoopCloser
+    from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+    from pyorbslam_jax.io.synthetic import generate_sequence
+    from pyorbslam_jax.slam import local_mapping, system as system_mod
+    from pyorbslam_jax.slam.system import System
+    from pyorbslam_jax.slam import slam_map as slam_map_mod
+    from pyorbslam_jax.slam.loop_closing import LoopCloser
 
     n_frames = args.frames
     width, height = 1241, 376
@@ -81,7 +81,7 @@ def main():
     wrap(System, "_frame_host", "sys.frame_pull")
     wrap(System, "_local_point_ids", "sys.local_point_ids")
     wrap(System, "_landmark_mirror", "sys.mirror_upload")
-    import pyorbslam_tpu.place.vocabulary as vm
+    import pyorbslam_jax.place.vocabulary as vm
     wrap(vm.Vocabulary, "transform", "vocab.transform")
     wrap(vm, "train", "vocab.train")
     wrap(System, "_stereo_initialization", "sys.init(total)")
@@ -91,8 +91,8 @@ def main():
     wrap(System, "_retrack_window_frame", "sys.retrack_frame")
 
     # time the window device dispatch + the packed read separately
-    import pyorbslam_tpu.slam.tracking as trk
-    import pyorbslam_tpu.slam.system as sysm_mod
+    import pyorbslam_jax.slam.tracking as trk
+    import pyorbslam_jax.slam.system as sysm_mod
     orig_window = trk.fused_track_window
 
     def timed_window(*a, **kw):

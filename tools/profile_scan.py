@@ -23,10 +23,10 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-    from pyorbslam_tpu.io.synthetic import generate_sequence
-    from pyorbslam_tpu.slam.system import System
-    from pyorbslam_tpu.slam import tracking as trk
+    from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+    from pyorbslam_jax.io.synthetic import generate_sequence
+    from pyorbslam_jax.slam.system import System
+    from pyorbslam_jax.slam import tracking as trk
 
     W = args.window
     n_frames = args.frames
@@ -51,7 +51,7 @@ def main():
 
     lm = sysm.map.landmarks
     local_ids = sysm._local_point_ids(sysm.last_assign)
-    from pyorbslam_tpu.slam.system import _cap_bucket
+    from pyorbslam_jax.slam.system import _cap_bucket
     cap = _cap_bucket(len(local_ids), cfg.tracking.max_local_points)
     p_ids = np.full(cap, -1, np.int32)
     p_ids[: len(local_ids)] = local_ids

@@ -95,7 +95,7 @@ class RefExtractor:
 def main():
     sys.path.insert(0, REF)
     sys.path.insert(0, os.path.join(REPO))
-    from pyorbslam_tpu.io.synthetic import generate_sequence
+    from pyorbslam_jax.io.synthetic import generate_sequence
 
     from Frame import Frame  # reference module
 

@@ -305,10 +305,10 @@ def load_reference_vocabulary():
     code on their real data structure."""
     from pyDBoW.TemplatedVocabulary import TemplatedVocabulary
 
-    from pyorbslam_tpu.place import vocabulary as vocab_mod
+    from pyorbslam_jax.place import vocabulary as vocab_mod
 
     txt = os.path.join(REPO, "tests", "_data", "orbvoc_synth.txt")
-    npz = os.path.join(REPO, "pyorbslam_tpu", "assets", "orb_vocab.npz")
+    npz = os.path.join(REPO, "pyorbslam_jax", "assets", "orb_vocab.npz")
     if (not os.path.exists(txt)
             or os.path.getmtime(txt) < os.path.getmtime(npz)):
         voc = vocab_mod.load_default()
@@ -334,7 +334,7 @@ def main():
     install_stub_modules()
     sys.path.insert(0, REF)
     sys.path.insert(0, REPO)
-    from pyorbslam_tpu.io.synthetic import generate_sequence
+    from pyorbslam_jax.io.synthetic import generate_sequence
 
     import Optimizer as RefOptimizer
     from Map import Map

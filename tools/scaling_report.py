@@ -48,8 +48,8 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from pyorbslam_tpu.optim.ba import BAProblem
-    from pyorbslam_tpu.parallel import dist_ba
+    from pyorbslam_jax.optim.ba import BAProblem
+    from pyorbslam_jax.parallel import dist_ba
 
     rng = np.random.default_rng(0)
     C, Pn = args.cams, args.points

@@ -8,7 +8,7 @@ recursive k-majority k-means, and leaf idf weights are computed over the
 training frames as documents.
 
     python tools/train_vocab.py [--scenes 24] [--frames 24] [--k 10]
-        [--L 5] [--out pyorbslam_tpu/assets/orb_vocab.npz]
+        [--L 5] [--out pyorbslam_jax/assets/orb_vocab.npz]
 """
 
 import argparse
@@ -39,9 +39,9 @@ def main():
     ap.add_argument("--L", type=int, default=5)
     ap.add_argument("--out", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "pyorbslam_tpu", "assets", "orb_vocab.npz"))
+        "pyorbslam_jax", "assets", "orb_vocab.npz"))
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend (leave the TPU free)")
+                    help="force the CPU backend (leave the GPU free)")
     args = ap.parse_args()
 
     if args.cpu:
@@ -49,10 +49,10 @@ def main():
 
     import jax.numpy as jnp
 
-    from pyorbslam_tpu.config import CameraConfig, OrbConfig, SlamConfig
-    from pyorbslam_tpu.io.synthetic import generate_sequence
-    from pyorbslam_tpu.place import vocabulary as vocab_mod
-    from pyorbslam_tpu.slam.frame import build_stereo_frame_jit
+    from pyorbslam_jax.config import CameraConfig, OrbConfig, SlamConfig
+    from pyorbslam_jax.io.synthetic import generate_sequence
+    from pyorbslam_jax.place import vocabulary as vocab_mod
+    from pyorbslam_jax.slam.frame import build_stereo_frame_jit
 
     trajectories = ["straight", "loop"]
     docs = []
